@@ -21,6 +21,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    from quinoa_tpu.base.xlacache import enable_compile_cache
+
+    enable_compile_cache()
 
     from quinoa_tpu.mesh import box_tet_mesh
     from quinoa_tpu.amr import refine_mesh, tag_edges_by_error

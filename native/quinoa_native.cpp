@@ -1,7 +1,7 @@
 // quinoa_tpu native host kernels.
 //
 // The reference implements its host/runtime layer in C++ (Charm++ chares,
-// Zoltan partitioning, DerivedData connectivity generators); the TPU build
+// Zoltan partitioning, DerivedData connectivity generators); this build
 // keeps the compute path in XLA but implements the per-(re)partition host
 // kernels natively too: derived connectivity (the analog of
 // src/Mesh/DerivedData.hpp genEsuel/genEsup), the assembly gather-table

@@ -1,6 +1,7 @@
-"""quinoa_tpu — a TPU-native adaptive computational fluid dynamics framework.
+"""quinoa_tpu — an accelerator-native adaptive computational fluid dynamics
+framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of Quinoa
+A ground-up JAX/XLA re-design of the capabilities of Quinoa
 (LANL's Charm++ adaptive CFD suite, see /root/reference):
 
 - ``inciter``: unstructured-tet shock hydrodynamics with continuous-Galerkin

@@ -5,7 +5,7 @@ mesh_adapter, tet_store, edge_store, refinement classes 1:2/1:4/1:8 with
 compatibility locking) and the Refiner chare (src/Inciter/Refiner.cpp):
 edge-tag -> compatibility closure -> template subdivision -> solution
 transfer, implemented as vectorized host-side (re)mesh events — refining
-triggers a rebuild of the static device tables, the TPU analog of the
+triggers a rebuild of the static device tables, the array-program analog of the
 reference's migration+resize path (SURVEY.md §5.7).
 
 Derefinement (derefine_mesh) collapses fully-flagged sibling groups back

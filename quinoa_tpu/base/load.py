@@ -7,7 +7,7 @@ elements, compute the chunk size and number of work units
     chunksize = (1 - u) * load/npe + u * 1      (interpolating between
     one-chunk-per-PE and one-unit-per-item)     u=0 ... u=1
 
-On TPU, "work units" are the per-device element blocks the partitioner
+Here the "work units" are the per-device element blocks the partitioner
 produces; virtualization > 0 maps to multiple mesh chunks resident per
 device (the vmap-over-chunks batching axis, SURVEY.md §2.15).
 """

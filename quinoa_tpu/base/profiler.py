@@ -6,12 +6,13 @@ stepping) and of its Charm++ Projections / ChareStateCollector tracing
 (src/Base/ChareStateCollector.hpp): phases accumulate wall-clock over
 repeated entries, and `jax_trace` wraps a block in jax.profiler.trace so
 the on-device timeline (XLA op breakdown) can be inspected with
-TensorBoard / xprof — the TPU-native replacement for Projections.
+TensorBoard / xprof — the replacement for Projections.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -27,31 +28,34 @@ class PhaseProfiler:
         print(prof.table())
 
     Phases may be entered repeatedly (times and counts accumulate); the
-    table lists phases in first-entry order with share-of-total.
+    table lists phases in first-entry order with share-of-total, plus
+    the first entry's and the median entry's duration (for "timestep"
+    the first entry includes the step's compilation).
     """
 
     def __init__(self):
         self._t0 = time.perf_counter()
         self._acc: Dict[str, float] = {}
-        self._n: Dict[str, int] = {}
+        self._durs: Dict[str, List[float]] = {}
         self._order: List[str] = []
 
     @contextlib.contextmanager
     def phase(self, name: str):
         if name not in self._acc:
             self._acc[name] = 0.0
-            self._n[name] = 0
+            self._durs[name] = []
             self._order.append(name)
         t = time.perf_counter()
         try:
             yield
         finally:
-            self._acc[name] += time.perf_counter() - t
-            self._n[name] += 1
+            d = time.perf_counter() - t
+            self._acc[name] += d
+            self._durs[name].append(d)
 
     def times(self) -> List[Tuple[str, float, int]]:
         """[(phase, seconds, entries)] in first-entry order."""
-        return [(k, self._acc[k], self._n[k]) for k in self._order]
+        return [(k, self._acc[k], len(self._durs[k])) for k in self._order]
 
     def total(self) -> float:
         return time.perf_counter() - self._t0
@@ -61,10 +65,13 @@ class PhaseProfiler:
         of the reference's end-of-run timer printout)."""
         tot = self.total()
         w = max((len(k) for k in self._order), default=5)
-        lines = [f"{'phase':<{w}}  {'sec':>9}  {'%':>5}  {'n':>6}"]
+        lines = [f"{'phase':<{w}}  {'sec':>9}  {'%':>5}  {'n':>6}  "
+                 f"{'first_ms':>10}  {'median_ms':>10}"]
         for k, s, n in self.times():
+            d = self._durs[k]
             lines.append(
-                f"{k:<{w}}  {s:9.3f}  {100.0 * s / tot:5.1f}  {n:6d}")
+                f"{k:<{w}}  {s:9.3f}  {100.0 * s / tot:5.1f}  {n:6d}  "
+                f"{1e3 * d[0]:10.3f}  {1e3 * statistics.median(d):10.3f}")
         acc = sum(self._acc.values())
         lines.append(
             f"{'(untimed)':<{w}}  {tot - acc:9.3f}  "
@@ -77,7 +84,7 @@ class PhaseProfiler:
 def jax_trace(logdir: Optional[str]):
     """Wrap a block in jax.profiler.trace when logdir is set (no-op
     otherwise): captures the on-device XLA timeline for TensorBoard —
-    the Charm++ Projections analog for TPU runs."""
+    the Charm++ Projections analog."""
     if not logdir:
         yield
         return

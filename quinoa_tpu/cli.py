@@ -15,8 +15,8 @@ import time
 class _Preempt:
     """Graceful preemption drain: SIGTERM/SIGINT set a flag; the step
     loop finishes the current iteration, writes a restart checkpoint
-    and the final outputs, and exits cleanly.  The TPU-production
-    analog of the reference's Charm++ checkpoint machinery under
+    and the final outputs, and exits cleanly.  The analog of the
+    reference's Charm++ checkpoint machinery under
     preemptible VMs (its `-r rsfreq` restart contract,
     src/Main/Inciter.cpp) — a preempted run resumes with `--restart`."""
 
@@ -88,10 +88,11 @@ def _cmd_inciter(argv):
                          "decomposition over a jax.sharding.Mesh; the "
                          "Transporter/Partitioner analog)")
     ap.add_argument("--slices", type=int, default=0,
-                    help="treat the --npes devices as N slices x "
-                         "(npes/N) chips: hierarchical (multi-slice) "
-                         "partitioning keeps halo exchange intra-slice "
-                         "(ICI) and only region boundaries cross DCN")
+                    help="treat the --npes devices as N hosts x "
+                         "(npes/N) cards: hierarchical partitioning "
+                         "keeps halo exchange inside a host (NVLink) "
+                         "and only region boundaries cross the network "
+                         "between hosts")
     ap.add_argument("-u", "--virtualization", type=float, default=0.0,
                     help="overdecomposition parameter in [0,1): cut "
                          "linearLoadDistributor-many chunks, LPT-pack "
@@ -141,10 +142,10 @@ def _cmd_inciter(argv):
         if args.verbose:
             print(f"  t0ref: {n0} -> {mesh.nelem} tets")
 
-    # Hilbert element reorder: the locality pass behind the fused
-    # Pallas windows (the reference's Sorter/Reorder analog,
-    # src/Inciter/Sorter.cpp) — semantically invisible (fields and
-    # outputs follow the reordered mesh consistently)
+    # Hilbert element reorder: the locality pass behind the gathers
+    # (the reference's Sorter/Reorder analog, src/Inciter/Sorter.cpp) —
+    # semantically invisible (fields and outputs follow the reordered
+    # mesh consistently)
     with prof.phase("reorder"):
         from .mesh.reorder import hilbert_element_reorder
 
@@ -1099,7 +1100,7 @@ def _cmd_rngtest(argv):
     #: threefry2x32 (same Random123 family); philox has no jax
     #: implementation, so the other hardware-friendly counter-based
     #: generator (rbg) stands in; MKL/RNGSSE are x86 libraries with no
-    #: TPU analog — their deck entries run the default counter RNG so
+    #: accelerator analog — their deck entries run the default counter RNG so
     #: the reference decks execute end-to-end (COMPONENTS.md §2.8)
     def _impl_of(rngname):
         if rngname.startswith("r123_threefry"):
@@ -1201,6 +1202,9 @@ _COMMANDS = {
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    from .base.xlacache import enable_compile_cache
+
+    enable_compile_cache()
     # -H [keyword]: auto-generated control-file keyword help, accepted
     # by every executable (HelpFactory.hpp; Keyword.hpp:90-99)
     if "-H" in argv or "--helpkw" in argv:
@@ -1216,11 +1220,11 @@ def main(argv=None):
     if "--version" in argv:
         from . import __version__
 
-        print(f"quinoa_tpu {__version__} (TPU-native rebuild of "
-              "Quinoa; jax/XLA/Pallas compute path)")
+        print(f"quinoa_tpu {__version__} (JAX rebuild of Quinoa; "
+              "jax/XLA compute path)")
         return 0
     if "--license" in argv:
-        print("quinoa_tpu: an independent TPU-native implementation of "
+        print("quinoa_tpu: an independent JAX implementation of "
               "the Quinoa feature set.\nReference upstream "
               "(github.com/quinoacomputing/quinoa) is BSD-3-Clause.")
         return 0

@@ -89,7 +89,7 @@ KEYWORDS: Dict[str, dict] = {
     "pelocal_reorder": dict(
         kind="scalar", parent="inciter", usage="pelocal_reorder true",
         short="Toggle the locality node reordering",
-        long="The tpu port always applies its Hilbert + first-touch "
+        long="The CLI always applies its Hilbert element "
              "locality reorder (the Sorter analog); the keyword is "
              "accepted for deck compatibility."),
     # -- pde blocks ------------------------------------------------------

@@ -69,7 +69,7 @@ def init_jointcorrgaussian(key, npar, mean, cov, dtype=None):
     mu = jnp.asarray(mean, dtype=dtype)
     L = jnp.linalg.cholesky(jnp.asarray(cov, dtype=dtype))
     z = jax.random.normal(key, (npar, mu.shape[0]), dtype=dtype)
-    return mu + z @ L.T
+    return mu + jnp.matmul(z, L.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def init_jointgamma(key, npar, gammas: Sequence[Tuple[float, float]],

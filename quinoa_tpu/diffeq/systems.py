@@ -25,6 +25,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+#: precision of every contraction: an f32 dot may otherwise run in TF32
+#: (about three decimal digits) on the GPU
+HI = jax.lax.Precision.HIGHEST
+
 
 def _arr(x, dtype=None):
     return jnp.asarray(x, dtype=dtype or jnp.zeros(0).dtype)
@@ -98,7 +102,8 @@ class OrnsteinUhlenbeck(SDEBase):
         th, mu = _arr(self.theta), _arr(self.mu)
         cov = _arr(self.sigmasq)
         L = jnp.linalg.cholesky(cov)  # lower; reference stores upper+transpose
-        Y = Y + th * (mu - Y) * dt + jnp.sqrt(dt) * (dW @ L.T)
+        Y = (Y + th * (mu - Y) * dt
+             + jnp.sqrt(dt) * jnp.matmul(dW, L.T, precision=HI))
         return self.put(P, Y)
 
 
@@ -436,7 +441,8 @@ class GeneralizedDirichlet(SDEBase):
                 cmat[i, j] = cij[idx] if idx < len(cij) else 0.0
                 idx += 1
         cmat_j = _arr(cmat)
-        a = inv @ cmat_j.T  # (npar,n) sum_j c_ij / Ycum_j (cols j<n-1 only set)
+        # (npar,n) sum_j c_ij / Ycum_j (cols j<n-1 only set)
+        a = jnp.matmul(inv, cmat_j.T, precision=HI)
 
         YN = Ycum[:, -1:]
         d = _sqrt_pos(k * Y * YN * U * dt)
@@ -605,10 +611,11 @@ class WrightFisher(SDEBase):
         B = jnp.eye(n, dtype=Y.dtype) * Y[:, :, None] - Y[:, :, None] * Y[:, None, :]
         w, V = jnp.linalg.eigh(B)
         sqB = jnp.einsum(
-            "pij,pj,pkj->pik", V, jnp.sqrt(jnp.maximum(w, 0.0)), V
+            "pij,pj,pkj->pik", V, jnp.sqrt(jnp.maximum(w, 0.0)), V,
+            precision=HI,
         )
         Y = Y + 0.5 * (om - Om * Y) * dt + jnp.sqrt(dt) * jnp.einsum(
-            "pij,pj->pi", sqB, dW
+            "pij,pj->pi", sqB, dW, precision=HI
         )
         return self.put(P, Y)
 
@@ -628,7 +635,7 @@ class Position(SDEBase):
         X = self.slice(P)
         u = P[:, self.velocity_offset : self.velocity_offset + 3]
         G = _arr(np.asarray(self.dU).reshape(3, 3))
-        X = X + (X @ G.T + u) * dt
+        X = X + (jnp.matmul(X, G.T, precision=HI) + u) * dt
         return self.put(P, X)
 
 
@@ -674,10 +681,10 @@ def _glm_G(hts, C0, rij, dU):
     dtmp = (b * dU).sum()
     G = (hts * A1 + B1 * trdU + G1 * dtmp) * eye
     G = G + hts * A2 * b + B2 * dU + B3 * dU.T + G4 * b * trdU
-    G = G + G2 * jnp.einsum("jl,il->ij", b, dU)
-    G = G + G3 * jnp.einsum("jl,li->ij", b, dU)
-    G = G + G5 * jnp.einsum("il,lj->ij", b, dU)
-    G = G + G6 * jnp.einsum("il,jl->ij", b, dU)
+    G = G + G2 * jnp.einsum("jl,il->ij", b, dU, precision=HI)
+    G = G + G3 * jnp.einsum("jl,li->ij", b, dU, precision=HI)
+    G = G + G5 * jnp.einsum("il,lj->ij", b, dU, precision=HI)
+    G = G + G6 * jnp.einsum("il,jl->ij", b, dU, precision=HI)
     return G
 
 
@@ -733,5 +740,5 @@ class Velocity(SDEBase):
             G = G - dUm
         dW = _gauss(key, U.shape[0], 3, U.dtype)
         d = _sqrt_pos(self.c0 * eps * dt)
-        U = U + (fluc @ G.T) * dt + d * dW
+        U = U + jnp.matmul(fluc, G.T, precision=HI) * dt + d * dW
         return self.put(P, U)

@@ -28,7 +28,7 @@ from ..ops.assembly import (
     assemble_max,
     assemble_min,
 )
-from ..pde.cg import CGGeom, cg_gather, cg_assemble_add
+from ..pde.cg import CGGeom
 
 
 class FCT:
@@ -56,8 +56,8 @@ class FCT:
 
     def diff(self, geom: CGGeom, Un):
         """Mass-diffusion rhs of the low-order system: (C, N) partials."""
-        un = cg_gather(geom, Un)
-        return cg_assemble_add(geom, self.diff_contrib(geom, un))
+        un = gather_nodes(Un, geom.inpoelT)
+        return assemble_add(self.diff_contrib(geom, un), geom.nsup)
 
     def aec(self, geom: CGGeom, dUh, Un, bcmask, un=None, bc_n=None,
             vol_n=None):
@@ -78,11 +78,11 @@ class FCT:
         # one assembly pass over the stacked [pos | neg] rows (each
         # extra row rides the same D gathers)
         C = aec.shape[1]
-        pn = cg_assemble_add(
-            geom,
+        pn = assemble_add(
             jnp.concatenate(
                 [jnp.maximum(aec, 0.0), jnp.minimum(aec, 0.0)], axis=1
             ),
+            geom.nsup,
         )
         return aec, jnp.stack([pn[:C], pn[C:]])
 
@@ -92,7 +92,7 @@ class FCT:
         driver may fuse their P assembly with the Q one
         (ops.assembly.assemble_add_max)."""
         if un is None:
-            un = cg_gather(geom, Un)
+            un = gather_nodes(Un, geom.inpoelT)
         me = self._mass_lumped_minus_consistent(geom, self.ctau * un)
         if vol_n is None:
             vol_n = jnp.stack(
@@ -101,7 +101,7 @@ class FCT:
         aec = me / vol_n[:, None, :]
 
         if bc_n is None:
-            bc_n = cg_gather(geom, bcmask)  # (4, C, E)
+            bc_n = gather_nodes(bcmask, geom.inpoelT)  # (4, C, E)
         return jnp.where(bc_n > 0, 0.0, aec)
 
     def alw(self, geom: CGGeom, Un, Ul):
@@ -132,11 +132,11 @@ class FCT:
             smin = jnp.minimum(uln, un).min(axis=0)
             s_el = jnp.concatenate([smax, -smin], axis=0)  # (2C, E)
         else:
-            s = cg_gather(
-                geom,
+            s = gather_nodes(
                 jnp.concatenate(
                     [jnp.maximum(Ul, Un), -jnp.minimum(Ul, Un)], axis=0
                 ),
+                geom.inpoelT,
             )  # (4, 2C, E): [max | -min]
             s_el = s.max(axis=0)
         return jnp.where(geom.emask <= 0, -big, s_el)
@@ -165,11 +165,11 @@ class FCT:
             0.0,
         )
 
-        rpm = cg_gather(
-            geom, jnp.concatenate([Rp, Rm], axis=0)
+        rpm = gather_nodes(
+            jnp.concatenate([Rp, Rm], axis=0), geom.inpoelT
         )  # (4, 2C, E)
         rp, rm = rpm[:, :C], rpm[:, C:]
         r = jnp.where(jnp.abs(aec) < eps, big, jnp.where(aec > 0.0, rp, rm))
         Cel = jnp.minimum(r.min(axis=0), 1.0)  # (C, E)
 
-        return cg_assemble_add(geom, Cel[None] * aec)
+        return assemble_add(Cel[None] * aec, geom.nsup)

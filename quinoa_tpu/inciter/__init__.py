@@ -1,6 +1,6 @@
 """inciter — parallel unstructured-tet shock hydrodynamics drivers.
 
-TPU-native counterpart of the reference's src/Inciter/ orchestration layer:
+Array-program counterpart of the reference's src/Inciter/ orchestration layer:
 the Charm++ chare state machines (Transporter, DiagCG, DG, DistFCT, ...)
 become pure jitted step functions over static geometry pytrees, driven by a
 plain Python time loop (or lax.scan for benchmarks).

@@ -4,7 +4,7 @@ The reference fork ships ALECG as a communication scaffold whose physics
 is stubbed out (src/Inciter/ALECG.cpp:289-311 rhs body and 343-372
 `m_du = m_rhs / m_lhs` are commented), with the lumped-mass lhs, dt, and
 comm structure in place.  This module supplies the full scheme the
-scaffold intends (BASELINE.md's ALECG north star), designed TPU-first:
+scaffold intends (BASELINE.md's ALECG north star), as array programs:
 
 - lumped-mass P1 Galerkin volume term: for element e the divergence of
   the linearly-interpolated flux is constant, so node a receives
@@ -175,41 +175,6 @@ class ALECGSolver:
             bcmask = bcmask.at[:, jnp.asarray(bcnodes, dtype=jnp.int32)].set(1.0)
         self.bcmask = bcmask
         self.lhs = lumped_mass(geom)
-        # fused window rhs (ops/alecg_fused.py): one volume kernel + one
-        # edge kernel per RK stage instead of the XLA gather/assembly
-        # chain.  The default is PER FLAVOR, from on-chip A/Bs at 48^3:
-        #   - transport (SlotCyl, r4): fused WINS, 186 vs 217 ms/step
-        #     (632k vs 542k node-updates/s) -> default ON on TPU;
-        #   - compflow (VorticalFlow, r5): fused LOSES, 186.5 vs
-        #     116.4 ms/step (631k vs 1.01M node-updates/s) — the Euler
-        #     flux/EoS/charspeed traced per edge endpoint in-kernel
-        #     outweighs the gathers it saves -> default OFF
-        #     (`bench_alecg.py --compflow`).
-        # QUINOA_CG_FUSED={0,1} overrides either way; on CPU the
-        # kernels would run in interpret mode, so the default stays off
-        # there (parity tests opt in explicitly).  DiagCG keeps the XLA
-        # default — its megakernel still loses (134 vs 110 ms).
-        import os as _os
-
-        _is_compflow = (getattr(system, "ncomp", 0) == 5
-                        and hasattr(system, "eos"))
-        _fused_default = ("1" if (jax.default_backend() == "tpu"
-                                  and not _is_compflow) else "0")
-        self.fused_plan = None
-        if _os.environ.get("QUINOA_CG_FUSED", _fused_default) == "1":
-            from ..ops.alecg_fused import build_alecg_fused_plan
-
-            self.fused_plan = build_alecg_fused_plan(system, geom, edget)
-            if (self.fused_plan is None
-                    and _os.environ.get("QUINOA_CG_FUSED") == "1"):
-                # warn only on an EXPLICIT opt-in (the TPU default-on
-                # silently falls back for non-qualifying configs)
-                import warnings
-
-                warnings.warn(
-                    "QUINOA_CG_FUSED=1 but the ALECG configuration "
-                    "doesn't qualify; running the XLA path",
-                    RuntimeWarning, stacklevel=2)
         if const_dt is None and getattr(system, "static_dt", None):
             u0 = system.initialize(geom.coords, 0.0).astype(
                 geom.vol.dtype)
@@ -231,14 +196,14 @@ class ALECGSolver:
 
     def step(self, state: CGState) -> CGState:
         return self._step(self.geom, self.edget, self.lhs, self.bcmask,
-                          self.fused_plan, state)
+                          state)
 
     def nsteps(self, state, n):
         for _ in range(n):
             state = self.step(state)
         return state
 
-    def _step_impl(self, geom, edget, lhs, bcmask, fused_plan,
+    def _step_impl(self, geom, edget, lhs, bcmask,
                    state: CGState) -> CGState:
         if self.const_dt is not None:
             dt = jnp.asarray(self.const_dt, dtype=geom.vol.dtype)
@@ -255,19 +220,10 @@ class ALECGSolver:
         ts = (state.t, state.t + dt, state.t + 0.5 * dt)
         to = (state.t + dt, state.t + 0.5 * dt, state.t + dt)
         for s in range(3):
-            # the plan rides as a jit ARGUMENT (mesh-sized tables as
-            # closure constants = the remote-compiler constant bomb)
-            if fused_plan is not None:
-                from ..ops.alecg_fused import alecg_rhs_fused
-
-                r = alecg_rhs_fused(fused_plan, u,
-                                    system=self.system)
-            else:
-                r = alecg_flux_rhs(self.system, geom, u) \
-                    + alecg_dissipation(
-                        self.system, geom, edget.edges, edget.A,
-                        edget.ensup, u, exyz=edget.xyz,
-                    )
+            r = alecg_flux_rhs(self.system, geom, u) + alecg_dissipation(
+                self.system, geom, edget.edges, edget.A, edget.ensup, u,
+                exyz=edget.xyz,
+            )
             if getattr(self.system.problem, "manufactured", False):
                 # nodal-quadrature manufactured source: node i receives
                 # V_i s(x_i, t_stage) (lumped-mass consistent)

@@ -1,6 +1,6 @@
 """DiagCG: node-centered, diagonally-lumped Taylor-Galerkin + FCT solver.
 
-TPU-native re-design of the reference's DiagCG chare array
+Re-design of the reference's DiagCG chare array
 (src/Inciter/DiagCG.cpp: dt 229-286, rhs 288-357, solve 359-414, update
 472-500) and its DistFCT companion: one time step is a single pure jitted
 function whose internal structure is
@@ -74,7 +74,7 @@ def diagcg_advance(
     nodal volumes to element nodes — the solver caches them so the
     per-step program carries no static gathers.
     """
-    from ..pde.cg import cg_gather, cg_assemble_add
+    from ..ops.assembly import assemble_add, assemble_add_max, gather_nodes
 
     C = u.shape[0]
     # ONE shared nodal gather feeds the PDE rhs, the mass diffusion, and
@@ -82,10 +82,10 @@ def diagcg_advance(
     # tets — each op re-gathering was the dominant step cost); the rhs
     # and diff element contributions then ride a single stacked assembly
     # and a single stacked halo exchange.
-    un = cg_gather(geom, u)                                 # (4, C, E)
+    un = gather_nodes(u, geom.inpoelT)                      # (4, C, E)
     rc = system.rhs_contrib(t, dt, geom, u, un)
     dc = fct.diff_contrib(geom, un)
-    rd = cg_assemble_add(geom, jnp.concatenate([rc, dc], axis=1))
+    rd = assemble_add(jnp.concatenate([rc, dc], axis=1), geom.nsup)
     rd = combine_sum(rd)                                    # (2C, N)
     r, dif = rd[:C], rd[C:]
 
@@ -107,23 +107,14 @@ def diagcg_advance(
                           vol_n=vol_n)
     # gather(max(Ul,Un)) == max(gather(Ul), un) elementwise, so alw
     # rides a C-row Ul gather instead of its own 2C-row one
-    uln = cg_gather(geom, ul)
+    uln = gather_nodes(ul, geom.inpoelT)
     s_el = fct.alw_contrib(geom, u, ul, un=un, uln=uln)     # (2C, E)
     pq = jnp.concatenate(
         [jnp.maximum(aec, 0.0), jnp.minimum(aec, 0.0)], axis=1)
     s4 = jnp.broadcast_to(s_el[None], (4,) + s_el.shape)
-    if geom.plan is None and 4 * C <= 16:
-        # fuse the P sum-assembly and Q max-assembly into one pass of
-        # shared nsup gathers — 4C rows stays under the ~16-row XLA
-        # gather cliff, so the pass costs the same as either alone
-        from ..ops.assembly import assemble_add_max
-
-        P2, Q2 = assemble_add_max(pq, s4, geom.nsup)
-    else:
-        from ..ops.assembly import assemble_max
-
-        P2 = cg_assemble_add(geom, pq)
-        Q2 = assemble_max(s4, geom.nsup)
+    # the P sum-assembly and Q max-assembly share one pass of nsup
+    # gathers
+    P2, Q2 = assemble_add_max(pq, s4, geom.nsup)
     # one stacked sum exchange for P, one stacked max exchange for Q
     # (min folds in by negation); Q2 rows are [qmax | -qmin]
     P2 = combine_sum(P2)
@@ -180,13 +171,6 @@ class DiagCGSolver:
             [bcmask[:, geom.inpoelT[a]] for a in range(4)])
         self.vol_n = jnp.stack(
             [geom.vol[geom.inpoelT[a]] for a in range(4)])
-
-        # NOTE: DiagCG has no fused-kernel variant.  The round-3/4
-        # megakernel (ops/cg_fused.py) permanently lost its silicon A/B
-        # (134 vs 110 ms/step at 48³ with the bf16 split) and was
-        # removed; the XLA formulation IS the DiagCG fast path
-        # (PERFORMANCE.md "DiagCG + FCT" floor analysis).  ALECG keeps
-        # its winning fused path (ops/alecg_fused.py).
 
         # CGTransport's dt law reads only the (static) velocity field —
         # the per-step sweep collapses to a constant when the velocity

@@ -2,7 +2,7 @@
 
 The reference overlaps its ExodusII field writes with computation via
 Charm++'s asynchronous MeshWriter chare group (src/IO/MeshWriter.hpp —
-writes proceed while chares continue stepping).  The TPU analog is a
+writes proceed while chares continue stepping).  The analog here is a
 single worker thread: the drivers enqueue whole write closures (the
 device->host gather inside the closure synchronizes only the arrays it
 reads; `DGState`/jax arrays are immutable, so a later step can never

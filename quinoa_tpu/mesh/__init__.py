@@ -1,6 +1,6 @@
 """Unstructured tetrahedral mesh core.
 
-TPU-native counterpart of the reference's ``src/Mesh/`` (UnsMesh.hpp,
+Array-program counterpart of the reference's ``src/Mesh/`` (UnsMesh.hpp,
 DerivedData.hpp): a plain-array mesh container plus derived-connectivity
 generators producing the padded dense tables the device kernels consume.
 """

@@ -4,7 +4,7 @@ Counterpart of the reference's ``src/Mesh/DerivedData.hpp:50-161``
 (genEsup/genPsup/genEdsup/genInpoed/genEsuel/genNbfacTet/genEsuf/...), but
 re-designed as O(sort) vectorized array algorithms instead of per-entity
 linked-list loops: all outputs are CSR pairs or dense tables ready to be
-padded and shipped to the TPU.
+padded and shipped to the device.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Precomputes the per-element quantities the reference recomputes inside every
 element loop (Jacobian ``J = (B-A)x(C-A).(D-A)`` and linear shape-function
 gradients via ``tk::crossdiv``, cf. src/PDE/CompFlow/CGCompFlow.hpp:191-348 and
-src/Base/Vector.hpp:21-37).  On TPU these are constants of the (re)partitioned
+src/Base/Vector.hpp:21-37).  On the device these are constants of the (re)partitioned
 mesh: computing them once in f64 on host and shipping them as dense [E,...]
 tables removes redundant flops and keeps the hot kernels bandwidth-bound only
 on solution data.

@@ -1,16 +1,15 @@
 """Gather-based finite-element assembly (feature-major layout).
 
-The two primitives under every CG operator, re-designed for TPU:
+The two primitives under every CG operator:
 
 - LAYOUT: all fields are component-major, entity-minor — U is (C, N),
-  element slabs are (4, C, E) — so the long node/element axis rides the
-  128-lane dimension and small feature axes ride sublanes.  This is the
-  TPU realization of the reference's compile-time data-layout switch
-  (tk::Data<EqCompUnk>, src/Base/Data.hpp:32-37).
+  element slabs are (4, C, E) — so the long node/element axis is the
+  contiguous one.  This is the array realization of the reference's
+  compile-time data-layout switch (tk::Data<EqCompUnk>,
+  src/Base/Data.hpp:32-37).
 
 - ASSEMBLY IS A GATHER, NOT A SCATTER: instead of scatter-adding element
-  contributions to nodes (which XLA lowers to slow serialized updates),
-  the host precomputes a padded slots-surrounding-node table `nsup`
+  contributions to nodes, the host precomputes a padded slots-surrounding-node table `nsup`
   (D, N) indexing into the flattened (a, e) contribution slots (the
   dense-CSR form of the reference's tk::genEsup, src/Mesh/
   DerivedData.hpp:50-161); each node then *gathers and sums* its <= D
@@ -96,11 +95,10 @@ def assemble_add_max(contribA: jnp.ndarray, contribM: jnp.ndarray,
                      nsup: jnp.ndarray):
     """Fused sum- and max-assembly sharing the D nsup gathers.
 
-    The XLA gather is latency-bound in the ROW count up to ~16 rows, so
-    stacking the add rows (Ca) and the max rows (Cm) into ONE gather per
-    slot level costs the same as either assembly alone — this halves the
-    FCT P/Q assembly cost (the reference pays the same locality twice in
-    FluxCorrector::aec and ::alw over esup).
+    Stacking the add rows (Ca) and the max rows (Cm) into ONE gather per
+    slot level reads each slot index once for both assemblies (the
+    reference pays the same locality twice in FluxCorrector::aec and
+    ::alw over esup).
 
     contribA (4, Ca, E), contribM (4, Cm, E) -> ((Ca, N), (Cm, N)).
     """

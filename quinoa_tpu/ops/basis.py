@@ -46,7 +46,7 @@ def eval_basis(ndof: int, xi: jnp.ndarray) -> jnp.ndarray:
 def eval_basis_cm(ndof: int, xi: jnp.ndarray) -> jnp.ndarray:
     """Component-major Dubiner basis: xi (3, ...) -> (ndof, ...).
 
-    Same polynomials as eval_basis, laid out for the TPU feature-major
+    Same polynomials as eval_basis, laid out for the feature-major
     convention (the long point axis stays last).
     """
     x, e, z = xi[0], xi[1], xi[2]

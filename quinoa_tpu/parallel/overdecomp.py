@@ -4,7 +4,7 @@ The reference's single biggest published perf lever is Charm++
 overdecomposition — more chares than PEs, sized by
 tk::linearLoadDistributor's virtualization parameter u in [0,1]
 (LoadDistributor.cpp:23-90, doc/pages/inciter_performance.dox:21-62).
-The TPU analog:
+The analog here:
 
 - `linear_load_distributor(u, nelem, npes)` picks the chunk count,
   rounded up to a multiple of npes so every device hosts the same
@@ -14,7 +14,7 @@ The TPU analog:
   element counts — the load-balance role Charm++ chare placement and
   migration play;
 - each device's cpd chunks are then MERGED along the node/element axes
-  into one super-shard (long trailing axes, exactly what the TPU wants;
+  into one super-shard (long trailing axes, the layout every kernel wants;
   no nested collectives), so the existing SPMD solvers run unchanged.
   A boundary node shared by two chunks of the same device appears as
   two local copies, so the boundary-buffer gather table becomes

@@ -6,11 +6,11 @@ here): seed massless tracers inside the mesh, advect them with the
 flow velocity each time step, and write H5Part trajectories
 (io/h5part.py, the H5PartWriter analog).
 
-TPU-native design: everything is feature-major with the particle axis
+Array-program design: everything is feature-major with the particle axis
 LAST — positions are (3, P), element ids (P,).  Point location is a
 FIXED-HOP neighbor walk (tets are located by barycentric sign checks
 against the esuel adjacency; data-dependent while loops don't compile
-to static TPU programs, and a particle crosses at most CFL≈1 cells a
+to static-shape programs, and a particle crosses at most CFL≈1 cells a
 step, so K hops with K small is exact in practice and clamps safely at
 boundaries).  The barycentric coordinates come from the P1 shape
 functions: N_a(x) = 1/4 + grad_a . (x - centroid_e), with grad the

@@ -3,14 +3,14 @@
 The device-side data structure and the CGPDE operator protocol.
 Counterpart of the reference's CGPDE interface (src/PDE/CGPDE.hpp:43-130)
 and its Transport implementation (src/PDE/Transport/CGTransport.hpp),
-re-designed as pure functions over static geometry tables with the TPU
+re-designed as pure functions over static geometry tables with a
 feature-major layout: solution fields are (C, N), coordinates (3, N),
 per-element tables carry the element axis LAST — so every materialized
-array puts its long axis on the 128-lane dimension.
+array keeps its long axis contiguous.
 
 Geometry (Jacobians, P1 shape-function gradients, nodal volumes) is
 precomputed host-side in f64 once per (re)partition; assembly is gather-
-based (quinoa_tpu.ops.assembly), never a scatter.
+based (quinoa_tpu.ops.assembly).
 """
 
 from __future__ import annotations
@@ -25,14 +25,12 @@ import numpy as np
 
 from ..mesh.geometry import tet_geometry, nodal_volumes
 from ..ops.assembly import build_nsup, gather_nodes, assemble_add
-from ..ops.node_window import (NodePlan, build_node_plan,
-                               gather_nodes_window, assemble_add_window)
 
 
 @partial(
     jax.tree_util.register_dataclass,
     data_fields=["coords", "inpoelT", "J", "grad", "vol", "emask", "nsup",
-                 "plan", "coords_n", "ctr"],
+                 "coords_n", "ctr"],
     meta_fields=["nnode"],
 )
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +44,6 @@ class CGGeom:
     vol    : (nnode,)         nodal volumes, fully summed across shards
     emask  : (nelem,)         1.0 real element / 0.0 padding
     nsup   : (D, nnode) i32   assembly gather table (ops.assembly)
-    plan   : optional NodePlan routing gathers/sum-assemblies through
-             the windowed Pallas kernels (ops.node_window); pays off
-             when nodes are first-touch ordered along Hilbert elements
     nnode  : int              static node count
     """
 
@@ -60,37 +55,19 @@ class CGGeom:
     emask: jnp.ndarray
     nsup: jnp.ndarray
     nnode: int
-    plan: Optional[NodePlan] = None
     # static element-node coordinate caches: coords_n (4, 3, E) and the
     # element centers ctr (3, E).  Gathering coords by inpoelT inside
     # the step costs a full XLA gather launch each (dt's wave-speed
     # sweep + the Taylor-Galerkin velocity/source evaluations = 4+
     # per-step gathers of purely STATIC data); builders precompute
     # them once instead (DiagCG.cpp re-derives these per rhs because
-    # Charm++ chares own their coords — a TPU program should not).
+    # Charm++ chares own their coords).
     coords_n: Optional[jnp.ndarray] = None
     ctr: Optional[jnp.ndarray] = None
 
     @property
     def nelem(self) -> int:
         return self.inpoelT.shape[1]
-
-
-def cg_gather(geom: CGGeom, U):
-    """Nodal fields -> element-node slabs (4, C, E), via the windowed
-    Pallas kernel when the geometry carries a plan (3x on chip at 48^3)."""
-    if geom.plan is not None:
-        return gather_nodes_window(geom.plan, U)
-    return gather_nodes(U, geom.inpoelT)
-
-
-def cg_assemble_add(geom: CGGeom, contrib):
-    """Sum element-node contributions (4, C, E) -> (C, N); windowed
-    Pallas accumulation when a plan is present.  Extreme (max/min)
-    assemblies stay on the nsup path — measured FASTER there."""
-    if geom.plan is not None:
-        return assemble_add_window(geom.plan, contrib)
-    return assemble_add(contrib, geom.nsup)
 
 
 def coords_cache_np(coords, inpoelT):
@@ -129,16 +106,12 @@ def cg_ctr(geom: CGGeom):
     return sum(geom.coords[:, geom.inpoelT[a]] for a in range(4)) / 4.0
 
 
-def make_cggeom(mesh, dtype=None, window: bool = False) -> CGGeom:
+def make_cggeom(mesh, dtype=None) -> CGGeom:
     """Build single-shard CGGeom from a host UnsMesh (no padding).
 
     dtype defaults to JAX's current default float dtype (f64 with x64 —
-    matching the reference's tk::real — else f32, the TPU perf dtype).
-    Geometry is always derived in f64 on host.
-
-    window=True builds the windowed-kernel NodePlan; callers should
-    first apply hilbert_element_reorder + first_touch_node_reorder
-    (mesh/reorder.py) so the slot->node incidence is local.
+    matching the reference's tk::real — else f32).  Geometry is always
+    derived in f64 on host.
     """
     if dtype is None:
         dtype = jnp.zeros(0).dtype
@@ -147,10 +120,6 @@ def make_cggeom(mesh, dtype=None, window: bool = False) -> CGGeom:
         raise ValueError("mesh has non-positive element Jacobians")
     vol = nodal_volumes(mesh.coords, mesh.inpoel, mesh.nnode, J=J)
     nsup, _ = build_nsup(mesh.inpoel, mesh.nnode)
-    plan = None
-    if window:
-        plan = build_node_plan(mesh.inpoel, mesh.nnode,
-                               dtype=np.dtype(dtype))
     cn, ctr = coords_cache_np(mesh.coords.T, mesh.inpoel.T)
     return CGGeom(
         coords=jnp.asarray(mesh.coords.T, dtype=dtype),
@@ -161,7 +130,6 @@ def make_cggeom(mesh, dtype=None, window: bool = False) -> CGGeom:
         emask=jnp.ones(mesh.nelem, dtype=dtype),
         nsup=jnp.asarray(nsup),
         nnode=int(mesh.nnode),
-        plan=plan,
         coords_n=jnp.asarray(cn, dtype=dtype),
         ctr=jnp.asarray(ctr, dtype=dtype),
     )
@@ -211,8 +179,9 @@ class CGTransport:
 
     def rhs(self, t, dt, geom: CGGeom, U):
         """Right-hand side (C, nnode): per-shard partial sums."""
-        return cg_assemble_add(
-            geom, self.rhs_contrib(t, dt, geom, U, cg_gather(geom, U)))
+        return assemble_add(
+            self.rhs_contrib(t, dt, geom, U, gather_nodes(U, geom.inpoelT)),
+            geom.nsup)
 
     def rhs_contrib(self, t, dt, geom: CGGeom, U, un):
         """Element-node rhs contributions (4, C, E), pre-assembly, from

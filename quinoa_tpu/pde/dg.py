@@ -1,20 +1,19 @@
 """Discontinuous-Galerkin core: geometry tables and integral operators
 (feature-major layout, gather-based accumulation).
 
-TPU-native re-design of the reference's DG machinery (src/PDE/Integrate/
-{Volume,Surface,Boundary,Mass,Source}.cpp and src/Inciter/DG.cpp):
+Re-design of the reference's DG machinery (src/PDE/Integrate/
+{Volume,Surface,Boundary,Mass,Source}.cpp and src/Inciter/DG.cpp) as
+array programs:
 
 - everything static is precomputed host-side per (re)partition: element
   Jacobians, face normals/areas, and the *reference coordinates* of every
   face Gauss point in the left/right element frames;
 - LAYOUT: the modal solution is U (C*K, E) with row c*K+k; per-face slabs
   are (C*K, F); coordinates are (3, n).  The long element/face axis is
-  always LAST so it rides the 128-lane dimension — small feature axes
-  never get tiled into (8,128) padding;
+  always LAST, so small feature axes are never the contiguous one;
 - ACCUMULATION IS A GATHER: face-flux contributions land in per-face
   arrays; each element then gathers its four faces through the
-  faces-of-element table `fose` (with an L/R side selector) — no scatter
-  anywhere in the hot path;
+  faces-of-element table `fose` (with an L/R side selector);
 - quadrature loops (<= 11 volume, <= 6 face points) are unrolled in
   Python: XLA fuses each into one elementwise kernel over (·, E)/(·, F).
 """
@@ -32,6 +31,10 @@ import numpy as np
 from ..mesh.derived import gen_faces, gen_esuel, _TET_FACES
 from ..ops.basis import eval_basis, eval_basis_cm, eval_dbdxi, mass_diag
 from ..ops.quadrature import gauss_tet, gauss_tri, ng_vol, ng_face, ng_init
+
+#: precision of every contraction on the solver path: an f32 dot may
+#: otherwise run in TF32 (about three decimal digits) on the GPU
+HI = jax.lax.Precision.HIGHEST
 
 # BC type codes (per boundary face)
 BC_INTERIOR = 0
@@ -224,8 +227,7 @@ def build_dggeom(
 
     # sort faces by their left element: face order is internal to the
     # geometry (fose is built below from the sorted order), and el-sorted
-    # faces give the Pallas accumulation kernel bounded element windows
-    # per face tile (ops/face_accum.py)
+    # faces keep the left-state gathers local in memory
     forder = np.argsort(el, kind="stable")
     el, er = el[forder], er[forder]
     fn, farea = fn[forder], farea[forder]
@@ -309,8 +311,7 @@ def _phys_gp(node0, Jmat, xi):
 # -- operators ---------------------------------------------------------------
 
 
-def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
-           face_gp=True, want_charvel=False, vol_rhs=None):
+def dg_rhs(system, geom: DGGeom, U, dofmask, t, face_gp=True):
     """DG right-hand side: volume + surface + boundary + source integrals.
 
     U (C*K, E); dofmask (K, E) or None when every dof is active (the
@@ -318,8 +319,9 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
     several full-size multiplies per rhs).  Returns (C*K, E).
 
     All quadrature loops are single einsum contractions whose outputs keep
-    the long element/face axis LAST (never letting XLA tile a small
-    trailing pair); the whole rhs is ~20 dots + fused elementwise chains.
+    the long element/face axis LAST; the whole rhs is ~20 dots + fused
+    elementwise chains.  Every contraction is pinned to HIGHEST precision
+    (an f32 dot may otherwise run in TF32 on the GPU).
     """
     C = system.ncomp
     K = geom.ndof
@@ -331,122 +333,83 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
     if dofmask is not None:
         Uv = Uv * dofmask[None]
 
-    # ---- volume + source integrals ----------------------------------------
-    if vol_rhs is not None:
-        # the fused limit+volume window kernel already produced the
-        # (vol*emask-scaled) flux volume term on the limited state
-        # (ops/nbr_bounds.py superbee_limit_window emit_vol; callers
-        # gate this to coordinate-free, source-free systems)
-        Rv = vol_rhs.reshape(C, K, E)
-    else:
-        B_vol = jnp.asarray(tb["B_vol"], dtype=dt_)      # (G,K)
-        xi_vol = jnp.asarray(tb["xi_vol"].T, dtype=dt_)  # (3,G)
+    with jax.named_scope("dg_volume"):
+        # ---- volume + source integrals ------------------------------------
+        B_vol = jnp.asarray(tb["B_vol"], dtype=dt_)          # (G,K)
+        xi_vol = jnp.asarray(tb["xi_vol"].T, dtype=dt_)      # (3,G)
         # weighted reference-gradient table: (G,K,3) * w -> wdB
         wdB = jnp.asarray(tb["w_vol"][:, None, None] * tb["dBdxi_vol"],
                           dtype=dt_)
         wB = jnp.asarray(tb["w_vol"][:, None] * tb["B_vol"],
                          dtype=dt_)                      # (G,K)
 
-        state = jnp.einsum("gk,cke->cge", B_vol, Uv)     # (C,G,E)
+        state = jnp.einsum("gk,cke->cge", B_vol, Uv,
+                           precision=HI)                 # (C,G,E)
         gp = (
             geom.node0[:, None, :]
-            + jnp.einsum("ime,mg->ige", geom.Jmat, xi_vol)
-        )                                                # (3,G,E)
+            + jnp.einsum("ime,mg->ige", geom.Jmat, xi_vol, precision=HI)
+        )                                                    # (3,G,E)
 
         Rv = jnp.zeros((C, K, E), dtype=dt_)
         if K > 1:
-            Fj = system.flux_cols(state, gp, t)          # [3] of (C,G,E)
+            Fj = system.flux_cols(state, gp, t)              # [3] of (C,G,E)
             Fref = jnp.stack(
                 [
                     sum(Fj[j] * geom.jacInv[m, j] for j in range(3))
                     for m in range(3)
                 ]
-            )                                            # (3,C,G,E)
-            Rv = Rv + jnp.einsum("gkm,mcge->cke", wdB, Fref)
+            )                                                # (3,C,G,E)
+            Rv = Rv + jnp.einsum("gkm,mcge->cke", wdB, Fref, precision=HI)
         if getattr(system, "has_src", True):
-            sarr = system.src(gp, t)                     # (C,G,E)
-            Rv = Rv + jnp.einsum("gk,cge->cke", wB, sarr)
+            sarr = system.src(gp, t)                         # (C,G,E)
+            Rv = Rv + jnp.einsum("gk,cge->cke", wB, sarr, precision=HI)
 
         Rv = Rv * (geom.vol * geom.emask)
 
-    if accum_plan is not None and dofmask is None and not face_gp:
-        # fully fused Pallas face pass (ops/face_fused.py); with
-        # want_charvel the same kernels also produce delt, the dt
-        # sweep's per-element summed charvel (replacing dg_dt's
-        # separate 300 ms sweep).  Single-chip plans carry the near/far
-        # split (near faces accumulate BOTH sides in-window); stacked
-        # SPMD plans use the single-stream variant.
-        from ..ops.face_fused import fused_face_pass, fused_face_pass_nearfar
-
-        if getattr(accum_plan, "fused", None) is not None:
-            acc, delt = fused_face_pass_nearfar(system, geom,
-                                                accum_plan, U)
-            r = Rv.reshape(C * K, E) + acc
-            return (r, delt) if want_charvel else r
-        if want_charvel:
-            from ..ops.face_accum import accumulate_faces
-
-            acc, mx = fused_face_pass(system, geom, accum_plan, U,
-                                      emit_charvel=True)
-            delt = accumulate_faces(accum_plan, mx[None], mx[None])[0]
-            return Rv.reshape(C * K, E) + acc, delt
-        acc = fused_face_pass(system, geom, accum_plan, U)
-        return Rv.reshape(C * K, E) + acc
-
-    # ---- face pass (interior + boundary in one sweep) ---------------------
-    interior = geom.bctype == BC_INTERIOR
-    B_l = eval_basis_cm(K, geom.xi_l)                    # (K,G,F)
-    B_r = eval_basis_cm(K, geom.xi_r)
-    if dofmask is not None:
-        B_l = B_l * dofmask[:, None, geom.el]
-        B_r = B_r * dofmask[:, None, geom.er]
-    if accum_plan is not None and dofmask is None:
-        # left states through the Pallas window gather (el-sorted faces)
-        from ..ops.face_accum import gather_left_states
-
-        UvL = gather_left_states(accum_plan, U, C, K)
-    else:
-        UvL = Uv[:, :, geom.el]
-    sL = jnp.einsum("kgf,ckf->cgf", B_l, UvL)
-    sR = jnp.einsum("kgf,ckf->cgf", B_r, Uv[:, :, geom.er])
-    if face_gp:
-        gpf = (
-            geom.node0[:, None, geom.el]
-            + jnp.einsum("imf,mgf->igf", geom.Jmat[:, :, geom.el], geom.xi_l)
-        )                                                # (3,G,F)
-    else:
-        # the system's flux/bcs are coordinate-free on faces (compflow
-        # without Dirichlet/inlet): skip the node0/Jmat face gathers
-        gpf = None
-    fnf = geom.fn[:, None, :]                            # (3,1,F)
-    sR = jnp.where(
-        interior,
-        sR,
-        system.bc_state(geom.bctype, sL, fnf, gpf, t),
-    )
-    fl = system.riemann(fnf, sL, sR, gpf, t)             # (C,G,F)
-
-    wt = jnp.asarray(tb["w_face"], dtype=dt_)[:, None] * (
-        geom.farea * geom.fmask
-    )                                                    # (G,F)
-    contribL = -jnp.einsum("kgf,gf,cgf->ckf", B_l, wt, fl)
-    contribR = jnp.einsum("kgf,gf,cgf->ckf", B_r, wt, fl)
-
-    if accum_plan is not None:
-        # Pallas face->element accumulation (TPU): one-hot MXU matmuls
-        # over el/er-sorted face tiles, ~24x the fose gathers at scale
-        from ..ops.face_accum import accumulate_faces
-
-        acc = accumulate_faces(accum_plan, contribL, contribR, C, K)
+    with jax.named_scope("dg_face"):
+        # ---- face pass (interior + boundary in one sweep) -----------------
+        interior = geom.bctype == BC_INTERIOR
+        B_l = eval_basis_cm(K, geom.xi_l)                    # (K,G,F)
+        B_r = eval_basis_cm(K, geom.xi_r)
         if dofmask is not None:
-            Rv = Rv * dofmask[None]
-        return Rv.reshape(C * K, E) + acc
+            B_l = B_l * dofmask[:, None, geom.el]
+            B_r = B_r * dofmask[:, None, geom.er]
+        sL = jnp.einsum("kgf,ckf->cgf", B_l, Uv[:, :, geom.el],
+                        precision=HI)
+        sR = jnp.einsum("kgf,ckf->cgf", B_r, Uv[:, :, geom.er],
+                        precision=HI)
+        if face_gp:
+            gpf = (
+                geom.node0[:, None, geom.el]
+                + jnp.einsum("imf,mgf->igf", geom.Jmat[:, :, geom.el],
+                             geom.xi_l, precision=HI)
+            )                                                # (3,G,F)
+        else:
+            # the system's flux/bcs are coordinate-free on faces (compflow
+            # without Dirichlet/inlet): skip the node0/Jmat face gathers
+            gpf = None
+        fnf = geom.fn[:, None, :]                            # (3,1,F)
+        sR = jnp.where(
+            interior,
+            sR,
+            system.bc_state(geom.bctype, sL, fnf, gpf, t),
+        )
+        fl = system.riemann(fnf, sL, sR, gpf, t)             # (C,G,F)
 
-    # gather each element's four faces (no scatter)
-    for i in range(4):
-        f = geom.fose[i]
-        side = geom.fsideR[i]
-        Rv = Rv + jnp.where(side > 0, contribR[:, :, f], contribL[:, :, f])
+        wt = jnp.asarray(tb["w_face"], dtype=dt_)[:, None] * (
+            geom.farea * geom.fmask
+        )                                                    # (G,F)
+        contribL = -jnp.einsum("kgf,gf,cgf->ckf", B_l, wt, fl,
+                               precision=HI)
+        contribR = jnp.einsum("kgf,gf,cgf->ckf", B_r, wt, fl,
+                              precision=HI)
+
+        # gather each element's four faces through the fose table
+        for i in range(4):
+            f = geom.fose[i]
+            side = geom.fsideR[i]
+            Rv = Rv + jnp.where(side > 0, contribR[:, :, f],
+                                contribL[:, :, f])
 
     if dofmask is not None:
         Rv = Rv * dofmask[None]
@@ -469,12 +432,13 @@ def dg_dt(system, geom: DGGeom, U, dofmask):
     if dofmask is not None:
         B_l = B_l * dofmask[:, None, geom.el]
         B_r = B_r * dofmask[:, None, geom.er]
-    sL = jnp.einsum("kgf,ckf->cgf", B_l, Uv[:, :, geom.el])
-    sR = jnp.einsum("kgf,ckf->cgf", B_r, Uv[:, :, geom.er])
+    sL = jnp.einsum("kgf,ckf->cgf", B_l, Uv[:, :, geom.el], precision=HI)
+    sR = jnp.einsum("kgf,ckf->cgf", B_r, Uv[:, :, geom.er], precision=HI)
     if getattr(system, "needs_face_gp", True):
         gpf = (
             geom.node0[:, None, geom.el]
-            + jnp.einsum("imf,mgf->igf", geom.Jmat[:, :, geom.el], geom.xi_l)
+            + jnp.einsum("imf,mgf->igf", geom.Jmat[:, :, geom.el],
+                         geom.xi_l, precision=HI)
         )
     else:
         gpf = None
@@ -492,15 +456,6 @@ def dg_dt(system, geom: DGGeom, U, dofmask):
     return jnp.where(geom.emask > 0, elemdt, big).min()
 
 
-def dg_dt_from_delt(geom: DGGeom, delt):
-    """min_e vol_e / delt_e from the fused pass's per-element summed
-    charvel (each interior face contributes to el and er; boundary
-    faces only to el — matching the fose gather of dg_dt)."""
-    big = jnp.asarray(jnp.finfo(delt.dtype).max, dtype=delt.dtype)
-    elemdt = geom.vol / jnp.maximum(delt, 1e-300)
-    return jnp.where(geom.emask > 0, elemdt, big).min()
-
-
 def dg_initialize(system, geom: DGGeom, t):
     """L2 projection of the IC onto the modal basis (tk::initialize /
     eval_init, src/PDE/Integrate/Initialize.cpp).  Returns (C*K, E)."""
@@ -508,10 +463,11 @@ def dg_initialize(system, geom: DGGeom, t):
     tb = geom.tables
     dtype = geom.vol.dtype
     xi = jnp.asarray(tb["xi_init"].T, dtype=dtype)       # (3,G)
-    gp = geom.node0[:, None, :] + jnp.einsum("ime,mg->ige", geom.Jmat, xi)
+    gp = geom.node0[:, None, :] + jnp.einsum("ime,mg->ige", geom.Jmat, xi,
+                                             precision=HI)
     f = system.initialize(gp, t)                          # (C,G,E)
     wB = jnp.asarray(tb["w_init"][:, None] * tb["B_init"], dtype=dtype)
-    proj = jnp.einsum("gk,cge->cke", wB, f)
+    proj = jnp.einsum("gk,cge->cke", wB, f, precision=HI)
     mn = jnp.asarray(tb["mnorm"], dtype=dtype)
     return (proj / mn[None, :, None]).reshape(C * K, E)
 
@@ -545,7 +501,7 @@ def propagate_ndof(geom, ndofel):
     step (DG.cpp propagate_ndof:1286-1313): this is what lets a
     dropped-to-P0 element re-activate as the feature front reaches it.
     Non-transitive (the reference reads m_ndof and writes a copy);
-    implemented as a 4-row esuelT gather — no TPU scatter."""
+    implemented as a 4-row esuelT gather."""
     nbr = ndofel[jnp.maximum(geom.esuelT, 0)]  # (4,E) gather
     prom = ((nbr == 4) & (geom.esuelT >= 0)).any(axis=0)
     return jnp.where(prom, 4, ndofel)

@@ -5,10 +5,10 @@ Vectorized jnp re-implementations of the reference problem policies
 RotatedSodShocktube,SedovBlastwave,NLEnergyGrowth,RayleighTaylor,
 UserDefined}.cpp).
 
-LAYOUT CONTRACT (TPU feature-major): coordinates arrive as ``xyz`` of
+LAYOUT CONTRACT (feature-major): coordinates arrive as ``xyz`` of
 shape (3, n) and solutions return (5, n) — components lead, the long
-point axis is last, so every materialized array tiles onto the (8,128)
-vector registers without padding blowup.  Conservative components:
+point axis is last, so it is the contiguous one in every materialized
+array.  Conservative components:
 (rho, rho*u, rho*v, rho*w, rhoE).
 
 Manufactured sources are *derived by automatic differentiation* instead of
@@ -80,9 +80,7 @@ class CompFlowProblem:
 
         divF = jnp.zeros_like(dUdt)
         for j in range(3):
-            # axis-j one-hot built scatter-free: this traces inside the
-            # fused CG compflow Pallas kernel, where .at[].set's
-            # lax.scatter has no TPU lowering
+            # axis-j one-hot tangent
             row = jax.lax.broadcasted_iota(jnp.int32, xyz.shape, 0)
             tangent = jnp.where(row == j, 1.0, 0.0).astype(xyz.dtype)
             _, dFj = jax.jvp(lambda p, jj=j: flux_j(p, jj), (xyz,), (tangent,))
@@ -166,7 +164,8 @@ class RotatedSodShocktube(SodShocktube):
         Ry = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
         Rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
         R = jnp.asarray(Rx @ Ry @ Rz, dtype=xyz.dtype)
-        q = jnp.tensordot(R, xyz, axes=1)
+        q = jnp.tensordot(R, xyz, axes=1,
+                          precision=jax.lax.Precision.HIGHEST)
         return SodShocktube.solution(self, q, t)
 
 

@@ -22,7 +22,7 @@ class RNG:
 
     def __init__(self, seed: int = 0, impl: str = "threefry"):
         # 'threefry' is jax's default counter-based generator (Random123
-        # family); 'rbg' maps to the hardware-accelerated generator on TPU.
+        # family); 'rbg' is XLA's RngBitGenerator-backed generator.
         self.impl = impl
         self.key = jax.random.key(seed, impl="threefry2x32" if impl == "threefry" else impl)
 

@@ -1,8 +1,8 @@
 """PDF (histogram) estimation from particle ensembles.
 
 Counterpart of the reference's UniPDF/BiPDF/TriPDF sparse-map estimators
-(src/Statistics/UniPDF.hpp etc., merged across chares by PDFReducer): on
-TPU the histogram is a *dense fixed-extent* bin array filled with one
+(src/Statistics/UniPDF.hpp etc., merged across chares by PDFReducer): here
+the histogram is a *dense fixed-extent* bin array filled with one
 scatter-add — the cross-shard merge is the psum XLA inserts for the
 sharded sum, replacing the custom Charm++ reducer.
 

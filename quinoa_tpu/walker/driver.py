@@ -55,8 +55,8 @@ class Walker:
         self.dt = dt
         self.t0 = t0
         self.dtype = dtype or jnp.zeros(0).dtype
-        # QUINOA_PRNG_IMPL overrides the stream family (e.g. `rbg`, the
-        # TPU-hardware generator — far fewer ALU ops/draw than
+        # QUINOA_PRNG_IMPL overrides the stream family (e.g. `rbg`, XLA's
+        # RngBitGenerator-backed stream instead of
         # threefry2x32; statistically validated by the rngtest
         # batteries).  Default: jax's default (threefry), matching the
         # reference's Random123 streams.

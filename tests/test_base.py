@@ -2,6 +2,7 @@
 coverage analog)."""
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -98,7 +99,59 @@ def test_phase_profiler():
     assert times["a"][1] == 2 and times["b"][1] == 1
     assert times["a"][0] >= 0.02 and times["b"][0] >= 0.02
     tbl = prof.table()
-    assert "a" in tbl and "total" in tbl
+    assert "total" in tbl and "median_ms" in tbl
+    # per phase: sec, %, entries, first entry's and median entry's ms
+    rows = {ln.split()[0]: ln.split()[1:] for ln in tbl.splitlines()[1:]}
+    assert int(rows["a"][2]) == 2 and int(rows["b"][2]) == 1
+    assert float(rows["a"][3]) >= 10.0 and float(rows["b"][4]) >= 20.0
     # no-op trace context
     with jax_trace(None):
         pass
+
+
+_CACHE_PROBE = """
+import jax, jax.numpy as jnp
+from quinoa_tpu.base.xlacache import enable_compile_cache
+d = enable_compile_cache(min_compile_secs=0.0)
+jax.jit(lambda x: x * 2.0 + 1.0)(jnp.ones(3)).block_until_ready()
+print(repr(d))
+print(repr(jax.config.jax_compilation_cache_dir))
+"""
+
+
+def _cache_probe(**env):
+    """(directory enable_compile_cache returned, JAX's cache directory)
+    in a fresh process with the given environment."""
+    import ast
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    e = {k: v for k, v in os.environ.items()
+         if k not in ("JAX_COMPILATION_CACHE_DIR", "QUINOA_TEST_CACHE")}
+    e.update(JAX_PLATFORMS="cpu", **env)
+    out = subprocess.run([sys.executable, "-c", _CACHE_PROBE], cwd=root,
+                         env=e, capture_output=True, text=True, timeout=300,
+                         check=True)
+    returned, configured = out.stdout.splitlines()[-2:]
+    return ast.literal_eval(returned), ast.literal_eval(configured)
+
+
+def test_compile_cache_honours_env_dir(tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: the cache lands there and no other
+    directory is set in code."""
+    cache = str(tmp_path / "jaxcache")
+    assert _cache_probe(JAX_COMPILATION_CACHE_DIR=cache) == (cache, cache)
+    assert os.listdir(cache)
+
+
+def test_compile_cache_default_is_fixed_checkout_dir():
+    from quinoa_tpu.base.xlacache import DEFAULT_DIR
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert DEFAULT_DIR == os.path.join(root, ".jax_cache")
+    assert _cache_probe() == (DEFAULT_DIR, DEFAULT_DIR)
+
+
+def test_compile_cache_disabled():
+    assert _cache_probe(QUINOA_TEST_CACHE="0") == (None, None)

@@ -193,382 +193,3 @@ def test_dg_p2_vortical_flow():
         assert np.isfinite(np.asarray(s.u)).all(), ndof
         errs[ndof] = l2err[4]  # energy error
     assert errs[10] < errs[4]
-
-
-@pytest.mark.parametrize("ndof", [
-    4,
-    pytest.param(10, marks=pytest.mark.slow),  # DG(P2): K=10, G=6
-])
-def test_fused_nearfar_matches_xla_rhs(ndof):
-    """The near/far fused Pallas face pass (interpret mode on CPU, f64)
-    reproduces the XLA rhs and dg_dt exactly — the on-chip counterpart
-    runs in tools/check_fused.py."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.dg import dg_rhs, dg_dt, dg_dt_from_delt
-    from quinoa_tpu.pde.dg_compflow import DGCompFlow
-    from quinoa_tpu.pde.problems import SedovBlastwave
-
-    mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=ndof, bc_sidesets=bc)
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    plan = build_accum_plan(geom, TF=128, W=128)
-    assert plan.fused is not None
-    assert plan.fused.Fn > 0 and plan.fused.Ff > 0  # both streams live
-
-    rng = np.random.default_rng(3)
-    E = geom.nelem
-    K = ndof
-    U0 = np.zeros((5 * K, E))
-    U0[0] = 1.0 + 0.05 * rng.random(E)
-    U0[4 * K] = 2.5 + 0.05 * rng.random(E)
-    U0[K] = 0.1 * rng.random(E)
-    for ck in range(5 * K):
-        if ck % K:
-            U0[ck] = 0.01 * rng.random(E)
-    U = jnp.asarray(U0)
-
-    r_f, delt = jax.jit(
-        lambda g, p, u: dg_rhs(system, g, u, None, 0.0, accum_plan=p,
-                               face_gp=False, want_charvel=True)
-    )(geom, plan, U)
-    r_x = jax.jit(
-        lambda g, u: dg_rhs(system, g, u, None, 0.0, accum_plan=None,
-                            face_gp=False))(geom, U)
-    np.testing.assert_allclose(np.asarray(r_f), np.asarray(r_x),
-                               rtol=0, atol=1e-11)
-    dt_f = float(dg_dt_from_delt(geom, delt))
-    dt_x = float(dg_dt(system, geom, U, None))
-    assert np.isclose(dt_f, dt_x, rtol=1e-12)
-
-
-def test_fused_nearfar_nb4_variant(monkeypatch):
-    """QUINOA_NEAR_NB=4 widens the near kernel's right-state window to
-    FOUR output-aligned blocks (two extra one-hot gather masks + two
-    extra accumulation arrays), absorbing er-within-3-blocks faces from
-    the far stream; the rhs and charvel must match the 2-block default
-    exactly, and the far stream must actually shrink."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.dg import dg_rhs
-
-    mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    plan2 = build_accum_plan(geom, TF=128, W=128)
-    monkeypatch.setenv("QUINOA_NEAR_NB", "4")
-    plan4 = build_accum_plan(geom, TF=128, W=128)
-    monkeypatch.delenv("QUINOA_NEAR_NB")
-    assert plan4.fused.near.mex is not None
-    assert plan4.fused.Fn > plan2.fused.Fn  # faces actually moved near
-    # padded far tile counts can tie on tiny meshes; compare REAL faces
-    nreal = [int((np.asarray(p.fused.far.ks)[0] >= 0).sum())
-             for p in (plan2, plan4)]
-    assert nreal[1] < nreal[0], nreal
-
-    rng = np.random.default_rng(17)
-    E, K = geom.nelem, 4
-    U0 = np.zeros((5 * K, E))
-    U0[0] = 1.0 + 0.05 * rng.random(E)
-    U0[4 * K] = 2.5 + 0.05 * rng.random(E)
-    for ck in range(5 * K):
-        if ck % K:
-            U0[ck] = 0.01 * rng.random(E)
-    U = jnp.asarray(U0)
-
-    def rhs(g, p, u):
-        return dg_rhs(system, g, u, None, 0.0, accum_plan=p,
-                      face_gp=False, want_charvel=True)
-
-    r2, d2 = jax.jit(rhs)(geom, plan2, U)
-    r4, d4 = jax.jit(rhs)(geom, plan4, U)
-    np.testing.assert_allclose(np.asarray(r4), np.asarray(r2),
-                               rtol=0, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(d4), np.asarray(d2),
-                               rtol=0, atol=1e-11)
-
-
-def test_fused_nearfar_lane_gather_variant(monkeypatch):
-    """QUINOA_LANE_GATHER=1 swaps the kernels' one-hot GATHER masks +
-    MXU dots for tpu.dynamic_gather lane gathers (the accumulation
-    side keeps the one-hot scheme); gathers are exact either way, so
-    the rhs must match to accumulation-ulp level."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.dg import dg_rhs
-
-    mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    plan = build_accum_plan(geom, TF=128, W=128)
-
-    rng = np.random.default_rng(23)
-    E, K = geom.nelem, 4
-    U0 = np.zeros((5 * K, E))
-    U0[0] = 1.0 + 0.05 * rng.random(E)
-    U0[4 * K] = 2.5 + 0.05 * rng.random(E)
-    for ck in range(5 * K):
-        if ck % K:
-            U0[ck] = 0.01 * rng.random(E)
-    U = jnp.asarray(U0)
-
-    def rhs(g, p, u):
-        return dg_rhs(system, g, u, None, 0.0, accum_plan=p,
-                      face_gp=False, want_charvel=True)
-
-    r_def, d_def = jax.jit(rhs)(geom, plan, U)
-    monkeypatch.setenv("QUINOA_LANE_GATHER", "1")
-    r_lg, d_lg = jax.jit(rhs)(geom, plan, U)
-    np.testing.assert_allclose(np.asarray(r_lg), np.asarray(r_def),
-                               rtol=0, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(d_lg), np.asarray(d_def),
-                               rtol=0, atol=1e-12)
-
-
-def test_fused_nearfar_far_sr_variant(monkeypatch):
-    """QUINOA_FAR_SR=1 routes the far stream through the er-sorted
-    right-state pass (sR at Gauss points, C*G rows) instead of the
-    CK-row modal gather; the rhs must match the default path exactly."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.dg import dg_rhs
-
-    mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    plan = build_accum_plan(geom, TF=128, W=128)
-    assert plan.fused.Ff > 0
-
-    rng = np.random.default_rng(11)
-    E, K = geom.nelem, 4
-    U0 = np.zeros((5 * K, E))
-    U0[0] = 1.0 + 0.05 * rng.random(E)
-    U0[4 * K] = 2.5 + 0.05 * rng.random(E)
-    for ck in range(5 * K):
-        if ck % K:
-            U0[ck] = 0.01 * rng.random(E)
-    U = jnp.asarray(U0)
-
-    def rhs(g, p, u):
-        return dg_rhs(system, g, u, None, 0.0, accum_plan=p,
-                      face_gp=False, want_charvel=True)
-
-    r_def, delt_def = jax.jit(rhs)(geom, plan, U)
-    monkeypatch.setenv("QUINOA_FAR_SR", "1")
-    r_sr, delt_sr = jax.jit(rhs)(geom, plan, U)
-    np.testing.assert_allclose(np.asarray(r_sr), np.asarray(r_def),
-                               rtol=0, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(delt_sr),
-                               np.asarray(delt_def), rtol=0, atol=1e-12)
-
-
-def test_superbee_limit_window_matches_split_path(monkeypatch):
-    """QUINOA_LIMIT_IN_KERNEL=1 fuses bounds + Superbee phi + P1-dof
-    scaling into the window pass; matches the bounds-kernel + XLA-phi
-    split to FMA-fusion tolerance (the phi chain's multiply-adds may
-    contract differently in the two separately-traced programs)."""
-    import jax
-
-    from quinoa_tpu.ops.nbr_bounds import (
-        build_bounds_plan, neighbor_mean_bounds, superbee_limit_window,
-    )
-    from quinoa_tpu.pde.dg import uview
-    from quinoa_tpu.pde.limiter import superbee_p1
-
-    # 6x6x4 keeps the far path live (52 far faces at W=128) at a third
-    # of 8x8x6's interpret-mode cost
-    mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    plan = build_bounds_plan(geom, W=128)
-    assert plan.nef > 0  # far path live
-
-    rng = np.random.default_rng(5)
-    C, K, E = 5, 4, geom.nelem
-    U0 = rng.standard_normal((C * K, E)) * 0.1
-    U0[[c * K for c in range(C)]] += 2.0
-    U = jnp.asarray(U0)
-    u0 = uview(U, C, K)[:, 0, :]
-    ref = superbee_p1(geom, U, None, C,
-                      bounds=neighbor_mean_bounds(plan, u0))
-    new = superbee_limit_window(plan, geom, U, C)
-    np.testing.assert_allclose(np.asarray(new), np.asarray(ref),
-                               rtol=0, atol=1e-13)
-
-    # solver-level: a Sedov step under the env flag stays equivalent
-    from quinoa_tpu.inciter.dg import DGSolver
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    sol = DGSolver(system, geom, cfl=0.5, limiter="superbeep1")
-    sol.accum_plan = build_accum_plan(geom)
-    sol.bounds_plan = plan
-    s_ref = sol.nsteps(sol.initial_state(), 2)
-
-    # solver-level under the FULL fusion stack (limit + volume from the
-    # same window pass; the limit-only case is subsumed — the kernel
-    # parity above already pins the limited state)
-    monkeypatch.setenv("QUINOA_LIMIT_IN_KERNEL", "1")
-    monkeypatch.setenv("QUINOA_VOL_IN_KERNEL", "1")
-    sol3 = DGSolver(system, geom, cfl=0.5, limiter="superbeep1")
-    sol3.accum_plan = sol.accum_plan
-    sol3.bounds_plan = plan
-    s_v = sol3.nsteps(sol3.initial_state(), 2)
-    np.testing.assert_allclose(np.asarray(s_v.u), np.asarray(s_ref.u),
-                               rtol=0, atol=1e-11)
-    assert np.isclose(float(s_v.dt), float(s_ref.dt), rtol=1e-12)
-
-
-def test_phi_mxu_limit_matches(monkeypatch):
-    """QUINOA_PHI_MXU=1 batches the limit kernel's 12 face-point state
-    evaluations into one block-diagonal MXU dot; the limited state must
-    match the per-point FMA chains to summation-reorder tolerance."""
-    from quinoa_tpu.ops.nbr_bounds import (build_bounds_plan,
-                                           superbee_limit_window)
-
-    mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    plan = build_bounds_plan(geom, W=128)
-
-    rng = np.random.default_rng(29)
-    C, K, E = 5, 4, geom.nelem
-    U0 = rng.standard_normal((C * K, E)) * 0.1
-    U0[[c * K for c in range(C)]] += 2.0
-    U = jnp.asarray(U0)
-    ref = superbee_limit_window(plan, geom, U, C)
-    monkeypatch.setenv("QUINOA_PHI_MXU", "1")
-    new = superbee_limit_window(plan, geom, U, C)
-    np.testing.assert_allclose(np.asarray(new), np.asarray(ref),
-                               rtol=0, atol=1e-12)
-
-
-def test_rk_update_in_limit_kernel_matches(monkeypatch):
-    """QUINOA_RK_IN_KERNEL folds stages 0-1's RK update into the NEXT
-    stage's bounds/limit kernel prologue (block-local un/r/dt-over-vol
-    operands; only the (C, E) means update XLA-side for the neighbor
-    windows).  3 Sedov steps must match the unfolded full fusion stack
-    to FMA-fusion tolerance (the update's multiply-adds contract
-    differently in the two separately-traced programs)."""
-    from quinoa_tpu.inciter.dg import DGSolver
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.ops.nbr_bounds import build_bounds_plan
-
-    mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    aplan = build_accum_plan(geom)
-    bplan = build_bounds_plan(geom, W=128)
-
-    monkeypatch.setenv("QUINOA_LIMIT_IN_KERNEL", "1")
-    monkeypatch.setenv("QUINOA_VOL_IN_KERNEL", "1")
-    monkeypatch.delenv("QUINOA_RK_IN_KERNEL", raising=False)
-    ref = DGSolver(system, geom, cfl=0.5, limiter="superbeep1")
-    ref.accum_plan, ref.bounds_plan = aplan, bplan
-    assert not ref.rk_fold  # default off until the on-chip A/B
-    s_ref = ref.nsteps(ref.initial_state(), 3)
-
-    monkeypatch.setenv("QUINOA_RK_IN_KERNEL", "1")
-    fol = DGSolver(system, geom, cfl=0.5, limiter="superbeep1")
-    fol.accum_plan, fol.bounds_plan = aplan, bplan
-    fol.rk_fold = True  # plans injected post-init (CPU test pattern)
-    s_f = fol.nsteps(fol.initial_state(), 3)
-    np.testing.assert_allclose(np.asarray(s_f.u), np.asarray(s_ref.u),
-                               rtol=0, atol=1e-11)
-    assert np.isclose(float(s_f.dt), float(s_ref.dt), rtol=1e-12)
-
-
-def test_nbr_bounds_matches_esuelt():
-    """The Pallas window neighbor-bounds pass (interpret mode on CPU)
-    reproduces the esuelT-gather min/max bounds bit-exactly, and the
-    Superbee limiter fed those bounds matches the gather path."""
-    import jax
-
-    from quinoa_tpu.ops.nbr_bounds import (
-        build_bounds_plan, neighbor_mean_bounds,
-    )
-    from quinoa_tpu.pde.limiter import superbee_p1
-
-    mesh = box_tet_mesh(8, 8, 6, hi=(0.8, 0.8, 0.6))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    # W=128 keeps a live far path on this lex-ordered mesh
-    plan = build_bounds_plan(geom, W=128)
-    assert plan.nef > 0
-
-    rng = np.random.default_rng(7)
-    C, E = 5, geom.nelem
-    U = jnp.asarray(rng.standard_normal((C * 4, E)))
-    u0 = U.reshape(C, 4, E)[:, 0, :]
-
-    umin, umax = jax.jit(neighbor_mean_bounds)(plan, u0)
-
-    esuelT = np.asarray(geom.esuelT)
-    valid = esuelT >= 0
-    nbr = np.where(valid, esuelT, 0)
-    u0n = np.asarray(u0)
-    big = np.finfo(u0n.dtype).max
-    rmax, rmin = u0n.copy(), u0n.copy()
-    for i in range(4):
-        un = u0n[:, nbr[i]]
-        rmax = np.maximum(rmax, np.where(valid[i], un, -big))
-        rmin = np.minimum(rmin, np.where(valid[i], un, big))
-    np.testing.assert_array_equal(np.asarray(umax), rmax)
-    np.testing.assert_array_equal(np.asarray(umin), rmin)
-
-    lim_b = superbee_p1(geom, U, None, C, bounds=(umin, umax))
-    lim_g = superbee_p1(geom, U, None, C)
-    np.testing.assert_array_equal(np.asarray(lim_b), np.asarray(lim_g))
-
-
-@pytest.mark.parametrize("ndof", [
-    4,
-    pytest.param(10, marks=pytest.mark.slow),  # P2: CK=50 -> 5 chunks
-])
-def test_fused_nearfar_split_far_gather_variant(monkeypatch, ndof):
-    """QUINOA_SPLIT_FAR_GATHER=1 splits the CK-row far right-state
-    gather into <=16-row component groups (2 for P1 compflow, 5 for
-    P2); the reassembled rows are the same tensor, so the rhs must
-    match the default path exactly."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.dg import dg_rhs
-    from quinoa_tpu.pde.dg_compflow import DGCompFlow
-    from quinoa_tpu.pde.problems import SedovBlastwave
-
-    mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
-    geom = build_dggeom(mesh, ndof=ndof, bc_sidesets=bc)
-    system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
-    plan = build_accum_plan(geom, TF=128, W=128)
-    assert plan.fused.Ff > 0
-
-    rng = np.random.default_rng(13)
-    E, K = geom.nelem, ndof
-    U0 = np.zeros((5 * K, E))
-    U0[0] = 1.0 + 0.05 * rng.random(E)
-    U0[4 * K] = 2.5 + 0.05 * rng.random(E)
-    for ck in range(5 * K):
-        if ck % K:
-            U0[ck] = 0.01 * rng.random(E)
-    U = jnp.asarray(U0)
-
-    def rhs(g, p, u):
-        return dg_rhs(system, g, u, None, 0.0, accum_plan=p,
-                      face_gp=False)
-
-    r_def = jax.jit(rhs)(geom, plan, U)
-    monkeypatch.setenv("QUINOA_SPLIT_FAR_GATHER", "1")
-    r_sp = jax.jit(rhs)(geom, plan, U)
-    np.testing.assert_allclose(np.asarray(r_sp), np.asarray(r_def),
-                               rtol=0, atol=1e-12)

@@ -109,27 +109,3 @@ def test_no_fct_matches_high_order_update():
     s1 = solver.step(s)
     assert np.isfinite(np.asarray(s1.u)).all()
     assert float(s1.t) > 0
-
-
-def test_windowed_solver_matches_nsup_path():
-    """DiagCG+FCT with the windowed Pallas kernels (make_cggeom
-    window=True, interpret mode on CPU) reproduces the nsup-gather
-    solver on a Hilbert+first-touch-ordered mesh.  Sum order differs
-    (near/far split), so agreement is to roundoff, not bit-exact."""
-    from quinoa_tpu.mesh.reorder import (first_touch_node_reorder,
-                                         hilbert_element_reorder)
-
-    mesh = box_tet_mesh(8, 8, 4, hi=(1.0, 1.0, 0.5))
-    mesh, _ = hilbert_element_reorder(mesh)
-    mesh, _ = first_touch_node_reorder(mesh)
-    bc = mesh.all_bnodes()
-    system = CGTransport(SlotCyl())
-
-    sref = DiagCGSolver(system, make_cggeom(mesh), cfl=0.8, bcnodes=bc)
-    swin = DiagCGSolver(system, make_cggeom(mesh, window=True), cfl=0.8,
-                        bcnodes=bc)
-    a = sref.nsteps(sref.initial_state(), 5)
-    b = swin.nsteps(swin.initial_state(), 5)
-    np.testing.assert_allclose(float(b.t), float(a.t), rtol=1e-14)
-    np.testing.assert_allclose(np.asarray(b.u), np.asarray(a.u),
-                               rtol=1e-10, atol=1e-12)

@@ -1,4 +1,4 @@
-"""Persistent AMR intermediates through dtref (VERDICT r3 missing #1).
+"""Persistent AMR intermediates through dtref.
 
 The reference keeps ONE long-lived AMR::mesh_adapter_t in its Refiner,
 used for t0ref AND every during-timestep event: partial 1:2/1:4

@@ -184,78 +184,3 @@ def test_mesh_statistics_box():
             lines = open(os.path.join(d, f)).read().splitlines()
             assert lines[0].startswith("#")
             assert len(lines) > 1
-
-
-def test_first_touch_node_reorder_invariants():
-    """Node reorder keeps geometry/boundary semantics: same tet
-    coordinates per element, remapped side sets, and the first-touch
-    order property (node ids appear in non-decreasing first-use order
-    along the connectivity)."""
-    import numpy as np
-    from quinoa_tpu.mesh import box_tet_mesh
-    from quinoa_tpu.mesh.reorder import (first_touch_node_reorder,
-                                         hilbert_element_reorder)
-
-    mesh = box_tet_mesh(4, 4, 4, hi=(1.0, 1.0, 1.0))
-    mesh, _ = hilbert_element_reorder(mesh)
-    out, nperm = first_touch_node_reorder(mesh)
-    # per-element coordinates unchanged
-    np.testing.assert_array_equal(out.coords[out.inpoel],
-                                  mesh.coords[mesh.inpoel])
-    # side-set node coordinates unchanged as sets
-    for k in mesh.bnode:
-        a = np.sort(mesh.coords[mesh.bnode[k]], axis=0)
-        b = np.sort(out.coords[out.bnode[k]], axis=0)
-        np.testing.assert_array_equal(a, b)
-    # first-touch: scanning the connectivity, each new max id is +1
-    seen = -1
-    for n in out.inpoel.reshape(-1):
-        if n > seen:
-            assert n == seen + 1
-            seen = n
-
-
-def test_node_window_ops_match_assembly():
-    """Windowed Pallas gather/assemble (interpret mode, f64) are exact
-    against the nsup reference ops on a Hilbert+first-touch mesh."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    jax.config.update("jax_enable_x64", True)
-    from quinoa_tpu.mesh import box_tet_mesh
-    from quinoa_tpu.mesh.reorder import (first_touch_node_reorder,
-                                         hilbert_element_reorder)
-    from quinoa_tpu.ops.assembly import (build_nsup, gather_nodes,
-                                         assemble_add, assemble_max)
-    from quinoa_tpu.ops.node_window import (
-        build_node_plan, gather_nodes_window, assemble_add_window,
-        assemble_max_window)
-
-    mesh = box_tet_mesh(5, 4, 3, hi=(1.0, 0.8, 0.6))
-    mesh, _ = hilbert_element_reorder(mesh)
-    mesh, _ = first_touch_node_reorder(mesh)
-    N, E = mesh.nnode, mesh.nelem
-    plan = build_node_plan(mesh.inpoel, N, TF=128, W=128,
-                           dtype=np.float64)
-    assert plan.nfar >= 0
-    rng = np.random.default_rng(7)
-    C = 2
-    U = jnp.asarray(rng.normal(size=(C, N)))
-    inpoelT = jnp.asarray(mesh.inpoel.T)
-    ref = gather_nodes(U, inpoelT)
-    got = gather_nodes_window(plan, U, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=0, atol=0)
-
-    nsup, D = build_nsup(mesh.inpoel, N)
-    contrib = jnp.asarray(rng.normal(size=(4, C, E)))
-    ra = assemble_add(contrib, jnp.asarray(nsup))
-    ga = assemble_add_window(plan, contrib, interpret=True)
-    np.testing.assert_allclose(np.asarray(ga), np.asarray(ra),
-                               rtol=1e-14, atol=1e-13)
-
-    rm = assemble_max(contrib, jnp.asarray(nsup))
-    gm = assemble_max_window(plan, contrib, interpret=True)
-    np.testing.assert_allclose(np.asarray(gm), np.asarray(rm),
-                               rtol=0, atol=0)

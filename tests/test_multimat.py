@@ -143,7 +143,6 @@ def test_mm_p1_uniform_rhs_vanishes():
     mesh = box_tet_mesh(4, 4, 4)
     bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
     system = MultiMatSystem(_MMUniform())
-    system.fused_ok = False
     g = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
     u = dg_initialize(system, g, 0.0)
     r = np.asarray(system.rhs(g, u, 0.0))
@@ -161,7 +160,6 @@ def test_mm_p1_k0_rows_match_p0():
     bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
     prob = MMInterfaceAdvection()
     system = MultiMatSystem(prob)
-    system.fused_ok = False
     C = system.ncomp
     g0 = build_dggeom(mesh, ndof=1, bc_sidesets=bc)
     g1 = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
@@ -250,46 +248,9 @@ def test_mm_p1_interface_consistent_limiting():
     # phis would not); during evolution the total slope drifts only at
     # truncation level (checked via the means above)
     u_init = sol.initial_state().u
-    ul = sol._limit(g, u_init, None).reshape(C, 4, g.nelem)
+    ul = sol._limit(g, u_init).reshape(C, 4, g.nelem)
     slope_sum = np.asarray(ul[:nmat, 1:4, :]).sum(axis=0)
     assert np.abs(slope_sum).max() < 1e-12
-
-
-def test_mm_p1_fused_matches_unfused():
-    """The fused near/far face pass at K=4 with the multimat facade
-    (riemannDeriv rows riding the k=0 accumulation) reproduces the
-    unfused XLA rhs and the dt charvel sums (interpret mode on CPU,
-    f64)."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.dg import dg_dt_from_delt
-    from quinoa_tpu.pde.problems.multimat import MMInterfaceAdvection
-
-    mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
-    prob = MMInterfaceAdvection()
-    system = MultiMatSystem(prob)
-    g = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    plan = build_accum_plan(g, TF=128, W=128)
-    assert plan.fused is not None
-
-    sol = MultiMatSolver(system, g, cfl=0.5, limiter="superbeep1")
-    u = sol._limit(g, sol.initial_state().u, None)
-
-    system.fused_ok = True
-    r_f, delt = jax.jit(
-        lambda gg, p, uu: system.rhs(gg, uu, 0.0, accum_plan=p,
-                                     want_delt=True)
-    )(g, plan, u)
-    system.fused_ok = False
-    r_x = jax.jit(
-        lambda gg, uu: system.rhs(gg, uu, 0.0))(g, u)
-    np.testing.assert_allclose(np.asarray(r_f), np.asarray(r_x),
-                               rtol=0, atol=1e-9)
-    dt_f = float(dg_dt_from_delt(g, delt))
-    dt_x = float(sol._dt_ho(g, u))
-    assert np.isclose(dt_f, dt_x, rtol=1e-12)
 
 
 @pytest.mark.slow
@@ -434,36 +395,6 @@ def test_mm_p1_thinc_sharpens_interface():
         a0 = um[0]
         width[sharp] = int(((a0 > 0.05) & (a0 < 0.95)).sum())
     assert width[True] <= width[False] - 8, width
-
-
-def test_mm_p1_thinc_fused_matches_unfused():
-    """The THINC face transform (tanh profile + mean-primitive
-    re-derivation) inside the fused Pallas kernels reproduces the
-    unfused XLA rhs (interpret mode on CPU, f64)."""
-    import jax
-
-    from quinoa_tpu.ops.face_accum import build_accum_plan
-    from quinoa_tpu.pde.problems.multimat import MMInterfaceAdvection
-
-    mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
-    prob = MMInterfaceAdvection()
-    system = MultiMatSystem(prob, intsharp=True)
-    g = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    plan = build_accum_plan(g, TF=128, W=128)
-    assert plan.fused is not None
-
-    sol = MultiMatSolver(system, g, cfl=0.5, limiter="superbeep1")
-    u = sol._limit(g, sol.initial_state().u, None)
-
-    system.fused_ok = True
-    r_f = jax.jit(
-        lambda gg, p, uu: system.rhs(gg, uu, 0.0, accum_plan=p)
-    )(g, plan, u)
-    system.fused_ok = False
-    r_x = jax.jit(lambda gg, uu: system.rhs(gg, uu, 0.0))(g, u)
-    np.testing.assert_allclose(np.asarray(r_f), np.asarray(r_x),
-                               rtol=0, atol=1e-9)
 
 
 def test_mm_deck_intsharp_keywords():

@@ -1,7 +1,7 @@
-"""Multi-slice (hierarchical) sharding: 2-level partition + slice-major
-device order so halo ppermute pairs stay intra-slice (ICI), only region
-boundaries cross DCN (SURVEY §5.8; the scaling-book recipe of keeping
-the chatty axis on the fast interconnect)."""
+"""Multi-host (hierarchical) sharding: 2-level partition + host-major
+device order so halo ppermute pairs stay inside a host (NVLink), only
+region boundaries cross the network between hosts (SURVEY §5.8; the
+recipe of keeping the chatty axis on the fast interconnect)."""
 
 import numpy as np
 import pytest

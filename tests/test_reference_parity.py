@@ -720,7 +720,7 @@ def test_t0ref_snapshot_field_parity(deck, snap):
     writes, Refiner.cpp:719-725) match the committed
     mesh_refinement/t0ref baselines.  exodiff_gauss_hump_dg.t0ref.cfg
     compares c1 at rel 1e-7 floor 1e-9 on the reference's f64 state; our
-    state is f32 by design (TPU), so the same comparison carries an f32
+    state is f32 by design (the accelerator dtype), so the same comparison carries an f32
     half-ulp tolerance."""
     from quinoa_tpu.io.exodus import read_exodus_elem_fields
     from quinoa_tpu.control.config import apply_t0ref

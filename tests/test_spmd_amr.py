@@ -5,7 +5,7 @@ path).
 
 The reference refines distributed with cross-chare compatibility
 iteration and migrates (Refiner.cpp:417-431, Transporter.cpp:450-523);
-the TPU design is 'static SPMD + reshard after AMR' (SURVEY §2.15):
+the design here is 'static SPMD + reshard after AMR' (SURVEY §2.15):
 gather -> retag/refine/transfer on host -> repartition -> rebuild the
 sharded solver -> resume stepping.
 """

@@ -99,3 +99,30 @@ def test_neighbor_halo_volume_scales(problem_setup):
         widths
     assert widths[8] < 2 * (nbs[8] + 1), (widths, nbs)
     assert nbs[8] > nbs[2]  # the global interface the psum moved does grow
+
+
+_TRANSPORT = """
+inciter
+  nstep 2
+  scheme {scheme}
+  transport
+    physics advection problem slot_cyl ncomp 1 depvar c
+    bc_dirichlet sideset 1 2 3 4 5 6 end end
+  end
+end
+"""
+
+
+@pytest.mark.parametrize("scheme", ["diagcg", "alecg", "dgp1"])
+def test_spmd_tables_live_on_every_device(scheme):
+    """The sharded geometry tables are laid over the device mesh when the
+    solver is built.  Left on one device, every step would copy them out
+    to the others before it could run."""
+    from quinoa_tpu.control.config import build_inciter_spmd, load_inciter
+
+    cfg = load_inciter(_TRANSPORT.format(scheme=scheme))
+    solver = build_inciter_spmd(cfg, box_tet_mesh(4, 4, 4), 4)
+    devices = set(solver.mesh.devices.flat)
+    for leaf in jax.tree_util.tree_leaves(solver.sharded):
+        assert leaf.sharding.device_set == devices
+        assert not leaf.sharding.is_fully_replicated
